@@ -1,12 +1,9 @@
 """Per-feature-family throughput ledger (VERDICT r4 task 5).
 
-The reference runs every feature at its one CPU speed; this build has a
-fast path (fused Pallas megakernels) and a general jnp wavefront chain.
-This bench records ONE number per feature family on the current backend
-so BENCH_NOTES can state which families run at kernel speed and what the
-chain families actually cost — no more unmeasured fallbacks.
+This bench records ONE number per feature family on the current backend:
+what each family costs through the jnp wavefront chain.
 
-All families render 960x544 spp1 through render_pass (D2H-bracketed);
+All families render 960x544 spp1 through render_pass;
 depth matches each family's natural workload.  --e2e additionally times
 the reference's de-facto full workload — 1920x1080, 16 spp, depth 10,
 through render() including film develop and PNG write
@@ -26,12 +23,13 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
+from gopbrt_tpu.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 W, H = 960, 544
 
@@ -156,17 +154,16 @@ def bench_family(name: str, iters: int = 3) -> None:
     )
     film = film_mod.new_film(W, H)
     out = render_mod.render_pass(scene, camera, film, settings, jnp.uint32(0))
-    float(jnp.sum(out.rgb))
+    jax.block_until_ready(out)
     t0 = time.perf_counter()
     for i in range(iters):
         out = render_mod.render_pass(scene, camera, out, settings,
                                      jnp.uint32(i + 1))
-    float(jnp.sum(out.rgb))
+    jax.block_until_ready(out)
     dt = (time.perf_counter() - t0) / iters
-    fi = scene.fastinfo
     print(json.dumps({
         "family": name,
-        "path": "megakernel" if (fi is not None and fi.ok) else "jnp-chain",
+        "platform": jax.devices()[0].platform,
         "depth": depth,
         "ms_per_pass": round(dt * 1e3, 1),
         "mrays_per_s": round(W * H / dt / 1e6, 3),

@@ -3,7 +3,7 @@
 Mirrors the reference's scaling series —
 ``pkg/accelerator/{simple,bvh}_benchmark_test.go`` Benchmark*_Intersect
 {1,10,100,1000} over a line of n spheres — measured as rays/s for a batch
-of rays instead of ns/op for one ray (the natural TPU unit of work).
+of rays instead of ns/op for one ray (the wavefront's unit of work).
 
 Run: python benchmarks/bench_intersect.py [--cpu] [--check]
 Prints one JSON line per (aggregate, n_prims) combo.  --check applies CI
@@ -34,8 +34,9 @@ def main() -> None:
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from gopbrt_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
 

@@ -1,12 +1,12 @@
-"""BASELINE config-5 end-to-end: inverse rendering on TPU.
+"""BASELINE config-5 end-to-end: inverse rendering.
 
 Optimizes an albedo IMAGE TEXTURE (16x16 atlas on a uv-mapped sphere)
 and the area-light radiance jointly from a target image, with 64-spp
 gradient steps (the config-5 description verbatim), Adam, pixel-MSE
 loss.  Gradients flow through the full wavefront path integrator
-(reverse mode; the megakernels' path-replay backward runs the same jnp
-chain).  Prints one JSON line: loss trajectory endpoints, texture
-recovery error, and ms per gradient step.
+(reverse mode through the jnp wavefront chain).  Prints one JSON line:
+loss trajectory endpoints, texture recovery error, and ms per gradient
+step.
 
 Usage: python benchmarks/bench_inverse.py [--steps N]
 """
@@ -22,13 +22,14 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 
 import jax
 import jax.numpy as jnp
 import optax
 
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
+from gopbrt_tpu.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 W = H = 64
 SPP = 64

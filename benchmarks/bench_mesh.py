@@ -2,10 +2,8 @@
 
 Renders models/meshes.build_mesh_scene (10,224-triangle tessellated sphere
 + checker floor + point/area lights) at 1spp depth-5 and reports
-camera-rays/s.  On TPU the whole path trace runs in the fused MESH
-megakernel (ops/pallas_mesh_megakernel.py — cluster traversal inlined in
-the bounce loop); off the fast path it falls back to the jnp wavefront
-chain + standalone cluster intersector.
+camera-rays/s.  The path trace runs the jnp wavefront chain with the
+lockstep BVH traversal of ops/bvh.py.
 
 Usage: python benchmarks/bench_mesh.py [--width W --height H --depth D]
 """
@@ -19,12 +17,13 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
+from gopbrt_tpu.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def main() -> None:
@@ -49,12 +48,12 @@ def main() -> None:
     film = film_mod.new_film(args.width, args.height)
 
     out = render_mod.render_pass(scene, camera, film, settings, jnp.uint32(0))
-    float(jnp.sum(out.rgb))  # D2H barrier (see BENCH_NOTES.md)
+    jax.block_until_ready(out)
 
     t0 = time.perf_counter()
     for i in range(args.iters):
         out = render_mod.render_pass(scene, camera, out, settings, jnp.uint32(i + 1))
-    float(jnp.sum(out.rgb))
+    jax.block_until_ready(out)
     dt = (time.perf_counter() - t0) / args.iters
 
     rays = args.width * args.height

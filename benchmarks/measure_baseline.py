@@ -25,16 +25,10 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def build() -> Path:
-    src = REPO / "gopbrt_tpu/native/cpu_baseline.cpp"
-    out = REPO / "gopbrt_tpu/native/_build/cpu_baseline"
-    out.parent.mkdir(exist_ok=True)
-    if not out.exists() or out.stat().st_mtime < src.stat().st_mtime:
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-std=c++17", "-pthread",
-             str(src), "-o", str(out)],
-            check=True,
-        )
-    return out
+    sys.path.insert(0, str(REPO / "benchmarks"))
+    from cross_validate import build_exe
+
+    return build_exe()
 
 
 def camera_matrices(width: int, height: int):
@@ -42,8 +36,10 @@ def camera_matrices(width: int, height: int):
 
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, str(REPO))
+    from gopbrt_tpu.compile_cache import enable_compile_cache
     from gopbrt_tpu.models.demo import build_demo_camera
 
+    enable_compile_cache()
     cam = build_demo_camera(width, height)
     return (
         np.asarray(cam.raster_to_camera).reshape(-1),

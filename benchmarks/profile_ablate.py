@@ -1,11 +1,9 @@
 """Ablation timings for the headline 1080p demo pass (see BENCH_NOTES.md)."""
-import os, time, json
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
-)
+import os, sys, time, json
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax, jax.numpy as jnp
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
+from gopbrt_tpu.compile_cache import enable_compile_cache
+enable_compile_cache()
 from gopbrt_tpu.models import film as film_mod
 from gopbrt_tpu.models import render as render_mod
 from gopbrt_tpu.models.demo import build_demo_camera, build_demo_scene

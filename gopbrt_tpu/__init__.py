@@ -1,4 +1,4 @@
-"""gopbrt_tpu — a TPU-native, differentiable wavefront path tracer.
+"""gopbrt_tpu — a differentiable wavefront path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 ``ssttuu/go-pbrt`` reference (a Go port of PBRT v3 exposed as a gRPC

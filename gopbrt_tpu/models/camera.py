@@ -4,7 +4,7 @@ Replaces the reference's ProjectiveCamera / PerspectiveCamera classes
 (``pkg/pbrt/camera.go:106-242``) with a parameter pytree + a vectorised
 ray-generation function.  The raster->screen->camera->world transform chain
 is precomputed host-side exactly as NewProjectiveCamera does
-(camera.go:106-124); per-ray work is two affine transforms on the VPU.
+(camera.go:106-124); per-ray work is two affine transforms.
 
 Also provides the orthographic camera (the reference declares the
 projection matrix, transform.go:501-502, but never built the camera class).

@@ -29,15 +29,15 @@ from gopbrt_tpu.ops import bsdf as bsdf_ops
 from gopbrt_tpu.ops import geom
 from gopbrt_tpu.ops import intersect as isect
 from gopbrt_tpu.ops import lights as light_ops
+from gopbrt_tpu.ops import pallas_intersect as brute_kernel
 from gopbrt_tpu.ops import rng
 from gopbrt_tpu.ops import sampling
 from gopbrt_tpu.ops import texture as tex_ops
 from gopbrt_tpu.ops.geom import dot, normalize
 from gopbrt_tpu.models.scene import Scene
 
-# sampling-dimension layout: defined in ops/rng.py (shared with the Pallas
-# bounce megakernel so both consume identical counter streams); re-exported
-# here for the existing call sites.
+# sampling-dimension layout: defined in ops/rng.py; re-exported here for
+# the existing call sites.
 from gopbrt_tpu.ops.rng import (  # noqa: F401  (re-exports)
     DIM_CAMERA,
     DIMS_PER_BOUNCE,
@@ -63,12 +63,9 @@ class PathConfig(NamedTuple):
     mis: bool = True  # MIS with BSDF samples hitting lights
     # wavefront compaction: after each bounce, sort alive lanes to the
     # front and process only ceil(alive/chunk) chunks of the next bounce.
-    # MEASURED LOSER ON TPU v5e (BENCH_NOTES.md): XLA's row scatter runs at
-    # ~84 ns/row, so moving ~100 B/lane of state costs more than the ~14
-    # ns/lane bounce it saves.  Kept (off by default) as the reference
-    # implementation of per-lane compaction and for backends with fast
-    # scatter.  Uses dynamic-trip-count loops — not reverse-mode
-    # differentiable.
+    # Off by default: it trades a gather/scatter of ~100 B/lane of state
+    # for the dead-lane work it skips, and its dynamic-trip-count loops
+    # are not reverse-mode differentiable.
     compaction: bool = False
     chunk_size: int = 1 << 18  # lanes per compacted chunk
     # full-width bounce loop with early exit once every lane is dead
@@ -80,65 +77,9 @@ class PathConfig(NamedTuple):
     null_passes: int = 2
 
 
-# below this primitive count the dense masked test beats lockstep BVH
-# traversal on a vector machine (no divergence, pure VPU throughput)
+# below this primitive count the dense test over every primitive beats a
+# BVH walk (ops/pallas_intersect on CUDA, ops/intersect elsewhere)
 BRUTE_FORCE_CUTOFF = 64
-
-# use the fused Pallas intersection kernel (ops/pallas_intersect.py):
-# True / False / None = auto (TPU only; interpret-mode elsewhere is slow)
-USE_PALLAS_INTERSECT: bool | None = None
-
-# use the fused Pallas bounce MEGAKERNEL (ops/pallas_megakernel.py) for
-# scenes inside the fast-path feature set (Scene.fastinfo.ok):
-# True / False / None = auto (TPU only)
-USE_MEGAKERNEL: bool | None = None
-
-
-def _pallas_on() -> bool:
-    if USE_PALLAS_INTERSECT is not None:
-        return USE_PALLAS_INTERSECT
-    return jax.default_backend() == "tpu"
-
-
-def _megakernel_on(scene: Scene, cfg: "PathConfig") -> bool:
-    """Static (trace-time) gate for the fused bounce megakernel."""
-    enabled = (
-        USE_MEGAKERNEL
-        if USE_MEGAKERNEL is not None
-        else jax.default_backend() == "tpu"
-    )
-    return bool(
-        enabled
-        and scene.fastinfo is not None
-        and getattr(scene.fastinfo, "ok", False)
-        and scene.prims.anim is None
-        and scene.prims.count <= BRUTE_FORCE_CUTOFF  # kernel is brute-force
-        and cfg.nee
-        and cfg.mis
-        and not cfg.compaction
-        and not cfg.early_exit
-    )
-
-
-def _mesh_megakernel_on(scene: Scene, cfg: "PathConfig") -> bool:
-    """Static gate for the MESH megakernel (cluster traversal in-kernel,
-    ops/pallas_mesh_megakernel.py) — BVH-class scenes on TPU."""
-    enabled = (
-        USE_MEGAKERNEL
-        if USE_MEGAKERNEL is not None
-        else jax.default_backend() == "tpu"
-    )
-    return bool(
-        enabled
-        and scene.fastinfo is not None
-        and getattr(scene.fastinfo, "mesh_ok", False)
-        and scene.meshkernel is not None
-        and scene.prims.anim is None
-        and cfg.nee
-        and cfg.mis
-        and not cfg.compaction
-        and not cfg.early_exit
-    )
 
 
 def _scene_intersect(scene: Scene, o, d, t_max, time=None):
@@ -153,55 +94,27 @@ def _scene_intersect(scene: Scene, o, d, t_max, time=None):
     """
     anim = scene.prims.anim is not None and time is not None
     if scene.bvh is not None and scene.prims.count > BRUTE_FORCE_CUTOFF:
-        if scene.clusters is not None and _pallas_on() and not anim:
-            # TPU: two-level cluster kernel (ops/pallas_cluster) — the
-            # lockstep XLA traversal's per-lane gathers serialize on TPU
-            from gopbrt_tpu.ops import pallas_cluster as pc
-
-            sg = jax.lax.stop_gradient
-            return pc.cluster_intersect(
-                scene.clusters, scene.prims, sg(o), sg(d), sg(t_max)
-            )
         from gopbrt_tpu.ops import bvh as bvh_mod
 
         return bvh_mod.bvh_intersect(
             scene.bvh, scene.prims, o, d, t_max, time=time if anim else None
         )
-    if _pallas_on() and not anim:
-        from gopbrt_tpu.ops import pallas_intersect as pk
-
-        sg = jax.lax.stop_gradient
-        return pk.intersect_brute_pallas(scene.prims, sg(o), sg(d), sg(t_max))
-    return isect.intersect_brute(
-        scene.prims, o, d, t_max, time=time if anim else None
-    )
+    if anim:
+        return isect.intersect_brute(scene.prims, o, d, t_max, time=time)
+    return brute_kernel.closest_hit(scene.prims, o, d, t_max)
 
 
 def _scene_intersect_p(scene: Scene, o, d, t_max, time=None):
     anim = scene.prims.anim is not None and time is not None
     if scene.bvh is not None and scene.prims.count > BRUTE_FORCE_CUTOFF:
-        if scene.clusters is not None and _pallas_on() and not anim:
-            from gopbrt_tpu.ops import pallas_cluster as pc
-
-            sg = jax.lax.stop_gradient
-            return pc.cluster_intersect_p(
-                scene.clusters, scene.prims, sg(o), sg(d), sg(t_max)
-            )
         from gopbrt_tpu.ops import bvh as bvh_mod
 
         return bvh_mod.bvh_intersect_p(
             scene.bvh, scene.prims, o, d, t_max, time=time if anim else None
         )
-    if _pallas_on() and not anim:
-        from gopbrt_tpu.ops import pallas_intersect as pk
-
-        sg = jax.lax.stop_gradient
-        return pk.intersect_p_brute_pallas(
-            scene.prims, sg(o), sg(d), sg(t_max)
-        )
-    return isect.intersect_p_brute(
-        scene.prims, o, d, t_max, time=time if anim else None
-    )
+    if anim:
+        return isect.intersect_p_brute(scene.prims, o, d, t_max, time=time)
+    return brute_kernel.any_hit(scene.prims, o, d, t_max)
 
 
 def _voxel_flat(scene: Scene, p):
@@ -286,8 +199,7 @@ def _material_at(
     matte.go:21-37 etc.).
 
     All float fields are packed into one [M, 12] matrix so the per-lane
-    lookup is a single one-hot matmul (TPU dynamic row-gathers serialize;
-    one-hot rides the MXU — see ops/intersect.gather_rows).
+    lookup is a single row gather (ops/intersect.gather_rows).
     """
     mid = scene.prims.material_id[si.prim_idx]
     mats = scene.materials
@@ -974,8 +886,8 @@ def _li_compacted(
     front each bounce and processed in ceil(alive/C) chunks of static size
     C — dead-lane work drops with the wavefront (RR kills >95% of lanes by
     bounce 4 on typical scenes; full-width masking would still pay for
-    them).  Gather/scatter of the ~100B/lane state is HBM-cheap (<0.5 ms at
-    2M lanes on v5e) next to a ~30 ms full-width bounce.
+    them), at the price of a gather and a scatter of the ~100 B/lane
+    state per chunk.
 
     The loop is a while_loop (exits when every lane is dead) over a
     fori_loop with a *traced* trip count — fine forward, not reverse-mode
@@ -1050,38 +962,6 @@ def li(
     Fixes reference quirk #4: directly-visible emitters DO contribute
     (the reference increments `bounces` before its emission check,
     path.go:41-48, losing camera-visible lights).
-
-    Dispatch: scenes inside the fast-path set (Scene.fastinfo.ok, see
-    ops/static_info.FastPathInfo) run the fused Pallas bounce megakernel
-    (forward; gradients replay through this jnp chain); everything else
-    runs the general jnp wavefront loop below.
-    """
-    if _megakernel_on(scene, cfg):
-        from gopbrt_tpu.ops import pallas_megakernel as mk
-
-        return mk.path_li_fused(scene, o, d, pixel, sample, seed, cfg, cone=cone)
-    if _mesh_megakernel_on(scene, cfg):
-        from gopbrt_tpu.ops import pallas_mesh_megakernel as pmm
-
-        return pmm.mesh_li_fused(
-            scene, o, d, pixel, sample, seed, cfg, cone=cone
-        )
-    return _li_jnp(scene, o, d, pixel, sample, seed, cfg, time=time, cone=cone)
-
-
-def _li_jnp(
-    scene: Scene,
-    o: jnp.ndarray,
-    d: jnp.ndarray,
-    pixel: jnp.ndarray,
-    sample: jnp.ndarray,
-    seed,
-    cfg: PathConfig = PathConfig(),
-    time=None,
-    cone=None,
-) -> jnp.ndarray:
-    """The general jnp wavefront bounce loop (every feature; differentiable).
-
     cone: optional (width0, spread) ray-cone scalars (camera.pixel_spread)
     enabling filtered texture lookups; None point-samples textures.
     """

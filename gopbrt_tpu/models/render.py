@@ -48,10 +48,9 @@ class RenderSettings(NamedTuple):
     sampler: str = "stratified"
     filter: Filter = box_filter(1.0)
     samples_per_pass: int = 1  # spp folded into one device launch
-    # wavefront compaction in the path integrator (see PathConfig).
-    # Measured 19x SLOWER on TPU v5e (XLA row-scatter cost, BENCH_NOTES.md)
-    # — off by default; kept for backends with fast scatter.  Its
-    # dynamic-trip-count loops are also not reverse-mode differentiable.
+    # wavefront compaction in the path integrator (see PathConfig): off by
+    # default; its dynamic-trip-count loops are not reverse-mode
+    # differentiable.
     compaction: bool = False
     # filtered texture lookups from a per-ray cone footprint (the
     # wavefront ComputeDifferentials, camera.pixel_spread): anti-aliases
@@ -234,8 +233,7 @@ def render_pass(
     """One full-image pass: samples_per_pass spp, chunked over row bands.
 
     Bands iterate under ``lax.scan`` so the band body is compiled once
-    regardless of image size (compile time matters: TPU compiles are
-    remote in some deployments).
+    regardless of image size (compile time is part of a cold request).
     """
     w, h = settings.width, settings.height
     chunk = settings.chunk_pixels or (w * h)
@@ -311,8 +309,8 @@ def render(
     checkpoint_path: when set, the accumulated film + pass counter are saved
     atomically every ``checkpoint_every`` passes and the render *resumes*
     from an existing checkpoint (the reference has no checkpointing — a
-    render runs to completion or is cancelled, SURVEY §5; pass granularity
-    is the natural TPU-side checkpoint unit).
+    render runs to completion or is cancelled, SURVEY §5; a pass is the
+    natural device-side checkpoint unit).
     """
     film = film_mod.new_film(settings.width, settings.height)
     n_passes = -(-settings.spp // settings.samples_per_pass)

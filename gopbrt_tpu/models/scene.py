@@ -112,19 +112,6 @@ class Scene(NamedTuple):
     # never exercise: it ships no concrete Medium).  None compiles all
     # medium code out of the integrator.
     medium: Optional["object"] = None  # ops.media.HomogeneousMedium
-    # static fast-path descriptor (ops/static_info.FastPathInfo): when .ok,
-    # the path integrator runs the fused Pallas bounce megakernel instead of
-    # the jnp wavefront chain.  None (scenes built without the builder) =
-    # jnp chain.
-    fastinfo: "object" = None
-    # Pallas two-level cluster table (ops/pallas_cluster.Clusters): the TPU
-    # accelerator for scenes above the brute-force cutoff; CPU keeps the
-    # lockstep BVH.  None = no clusters built.
-    clusters: Optional["object"] = None
-    # mesh-megakernel tables (ops/pallas_mesh_megakernel.MeshTables):
-    # triangle clusters + extras + material shade table, attached when
-    # fastinfo.mesh_ok and the scene is above the brute-force cutoff.
-    meshkernel: Optional["object"] = None
     # per-primitive medium system (ops/media.MediaTable + the
     # medium_inside/outside columns on Primitives): bounded media regions
     # with null-material boundaries — the working MediumInterface
@@ -324,7 +311,7 @@ class SceneBuilder:
                       reverse_orientation=False) -> list[int]:
         """Triangle mesh: vertices pre-transformed to world space at build
         (object instancing for meshes trades memory for a transform-free
-        hot path — the right call on TPU where the mesh lives in HBM once).
+        hot path; the mesh lives in device memory once).
         """
         verts = np.asarray(vertices, np.float32)
         m = np.asarray(o2w, np.float32)
@@ -657,7 +644,6 @@ class SceneBuilder:
             bvh=None,
             light_grid=light_grid,
             medium=medium,
-            fastinfo=self._fast_path_info(o2w),
             media=media,
             camera_medium=self._camera_medium,
         )
@@ -666,28 +652,6 @@ class SceneBuilder:
 
             bvh = bvh_mod.build_bvh_host(self)
             scene = scene._replace(bvh=bvh)
-            if n > 64 and anim is None:
-                # TPU accelerator: cluster table in the BVH's leaf order
-                # (ops/pallas_cluster; animated scenes keep the jnp path)
-                from gopbrt_tpu.ops import pallas_cluster as pc
-
-                lo_b, hi_b = bvh_mod._prim_bounds_np(self)
-                scene = scene._replace(
-                    clusters=pc.build_clusters(
-                        prims, lo_b, hi_b, np.asarray(bvh.prim_order)
-                    )
-                )
-                if scene.fastinfo.mesh_ok:
-                    # mesh megakernel tables: triangle clusters + extras
-                    # (ops/pallas_mesh_megakernel)
-                    from gopbrt_tpu.ops import pallas_mesh_megakernel as pmm
-
-                    scene = scene._replace(
-                        meshkernel=pmm.build_mesh_tables(
-                            scene, prims, lo_b, hi_b,
-                            np.asarray(bvh.prim_order),
-                        )
-                    )
         return scene
 
     def _build_textures(self) -> Textures:
@@ -745,89 +709,6 @@ class SceneBuilder:
             w2o=jnp.asarray(w2o),
             params=jnp.asarray(np.stack([r["params"] for r in rows])),
         )
-
-    def _fast_path_info(self, o2w: np.ndarray):
-        """Host-side eligibility check for the fused Pallas bounce megakernel
-        (ops/pallas_megakernel.py) — see static_info.FastPathInfo for the
-        closed feature set.  Conservative: any feature outside the set turns
-        the fast path off and the jnp wavefront chain runs instead."""
-        from gopbrt_tpu.ops.static_info import FastPathInfo
-
-        # conditions shared by the brute and mesh megakernels
-        common = True
-        for m in self._materials:
-            if m["bump_tex"] >= 0:
-                common = False
-            if m["mat_type"] == MATTE and m["sigma"] != 0.0:
-                common = False
-
-            t = m["kd_tex"]
-            if t >= 0:
-                row = self._textures[t]
-                if row["type"] == TEX_CONSTANT:
-                    pass
-                elif row["type"] == TEX_CHECKERBOARD and row["mapping"] == MAP_PLANAR:
-                    pass
-                else:
-                    common = False
-        # lights: point / distant / sphere-area, global distribution, 1..16
-        if not (1 <= len(self._lights) <= 16) or self.light_strategy == "spatial":
-            common = False
-        for r in self._lights:
-            if r["type"] == LIGHT_AREA and r["shape"] != SHAPE_SPHERE:
-                common = False
-        if self._medium is not None or any(self._reverse) or self._o2w_end:
-            common = False
-        # bounded media / null boundaries: jnp chain only
-        if self._media or self._medium_iface or any(
-            m["mat_type"] == NULLMAT for m in self._materials
-        ):
-            common = False
-        # transforms: rigid + uniform scale, det > 0 (both kernels derive
-        # sphere normals as normalize(p - center) and bake disk normals;
-        # world-space triangles carry identity rows, which pass trivially)
-        lin = np.asarray(o2w, np.float64)[:, :3, :3]
-        gram = np.einsum("pij,pkj->pik", lin, lin)
-        scale2 = np.maximum(np.einsum("pii->p", gram) / 3.0, 1e-30)
-        if not (
-            np.all(np.linalg.det(lin) > 0.0)
-            and np.allclose(
-                gram / scale2[:, None, None],
-                np.eye(3)[None],
-                atol=1e-4,
-            )
-        ):
-            common = False
-
-        # brute megakernel: sphere/disk shapes, matte/mirror/smooth-glass
-        ok = common
-        if any(t not in (SPHERE, DISK) for t in self._prim_type):
-            ok = False
-        if any(m["mat_type"] not in (MATTE, MIRROR, GLASS)
-               for m in self._materials):
-            ok = False
-
-        has_rough_glass = any(
-            m["mat_type"] == GLASS and m["roughness"] > 1e-4
-            for m in self._materials
-        )
-
-        # mesh megakernel: + triangles (<= 32 non-tri extras), + plastic,
-        # <= 16 materials (SMEM shade-table sweep cost); NO rough glass
-        # (the GGX R+T lobes are only in the brute kernel, round 5)
-        mesh_ok = common and len(self._materials) <= 16 and not has_rough_glass
-        n_extras = sum(1 for t in self._prim_type if t != TRIANGLE)
-        if not any(t == TRIANGLE for t in self._prim_type) or n_extras > 32:
-            mesh_ok = False
-        if any(m["mat_type"] not in (MATTE, MIRROR, GLASS, PLASTIC)
-               for m in self._materials):
-            mesh_ok = False
-        has_glass = any(
-            m["mat_type"] == GLASS and m["roughness"] <= 1e-4
-            for m in self._materials
-        )
-        return FastPathInfo(ok=ok, mesh_ok=mesh_ok, has_glass=has_glass,
-                            has_rough_glass=has_rough_glass)
 
     def _light_distribution(self, lights: Lights, world_radius: float):
         from gopbrt_tpu.ops import lights as lights_ops

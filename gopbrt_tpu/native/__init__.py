@@ -33,7 +33,9 @@ _lib_failed = False
 
 def _so_path() -> Path:
     suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
-    # one lib per source hash so edits trigger rebuilds
+    # one lib per source hash so edits trigger rebuilds; built with
+    # portable flags (no -march=native), so a library left in a checkout
+    # that moves to another host still loads there
     import hashlib
 
     src = (_SRC_DIR / "bvh_builder.cpp").read_bytes()
@@ -46,7 +48,6 @@ def _compile(so: Path) -> None:
     cmd = [
         os.environ.get("CXX", "g++"),
         "-O3",
-        "-march=native",
         "-std=c++17",
         "-shared",
         "-fPIC",

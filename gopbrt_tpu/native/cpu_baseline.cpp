@@ -288,9 +288,8 @@ static inline V3 xf_vT34(const float* m, V3 p) {  // w2o^T: normal to world
             m[2] * p.x + m[6] * p.y + m[10] * p.z);
 }
 
-// material record: mat_type + the 28 _MS_* columns of
-// ops/pallas_mesh_megakernel._mat_shade_np (same flattening the TPU
-// kernels consume; indices mirror the _MS_* constants)
+// material record: mat_type + the 28 MS_* columns of
+// native/scene_tables.mat_shade_table (indices mirror its MS_* constants)
 struct GMat {
   int type;      // 0 matte, 1 mirror, 2 glass, 3 plastic
   float ms[28];

@@ -399,8 +399,8 @@ def bsdf_f(mp: MaterialParams, wo, wi):
     """Evaluate non-delta f(wo, wi) (BSDF.F, reflection.go:169-186).
 
     Delta lobes (mirror, smooth glass) contribute zero, as in the reference.
-    Masked evaluation over the closed material set — on TPU this beats
-    data-dependent branching — but only over the lobes the scene's static
+    Masked evaluation over the closed material set (no data-dependent
+    branching across lanes), but only over the lobes the scene's static
     MatInfo says are present (ops/static_info.py).
     """
     types = _mtypes(mp)

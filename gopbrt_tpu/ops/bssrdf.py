@@ -16,8 +16,8 @@ The exit point is found by a probe ray through the sampled disk point —
 PBRT v3's SeparableBSSRDF::Sample_Sp scheme (axis choice n/ss/ts with
 probabilities .5/.25/.25, per-channel radius MIS), re-expressed branch-free
 over the whole wavefront: every lane computes the probe; dead lanes carry a
-zero-length ray.  TPU notes: the probe is one extra batched scene intersect
-per bounce, statically compiled out when the scene has no subsurface
+zero-length ray.  The probe is one extra batched scene intersect per
+bounce, statically compiled out when the scene has no subsurface
 material (``Materials.sss_d is None``).
 """
 

@@ -5,12 +5,12 @@ recursive SAH (12 buckets, bvh.go:272-411) or HLBVH (Morton + treelets,
 :413-630) and traverses a flattened depth-first ``LinearBVHNode`` array with
 an explicit 64-deep stack (:659-765).
 
-TPU re-design:
+Wavefront re-design:
   * Build runs **on the host in NumPy at scene-load time** (the reference
     builds on the serving path too, server.go:104).  Binned SAH, iterative
     with an explicit stack — no recursion limits.  Output is the same
     linearised node layout (bvh.go:80-87,632-651) as SoA arrays uploaded
-    once to HBM.
+    once to device memory.
   * Traversal is a *lockstep wavefront*: every ray keeps its own stack in
     a [N, DEPTH] register array and all rays advance one node per
     ``lax.while_loop`` iteration with masking.  Divergence costs the max

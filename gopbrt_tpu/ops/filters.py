@@ -6,8 +6,8 @@ concrete filter in the reference) — extended to the full PBRT filter set
 splat kernel is generic over the filter weight function.
 
 Weights are evaluated analytically per splat tap instead of the reference's
-16x16 precomputed table (film.go:61-73): on TPU the few transcendental ops
-are cheaper than a gather.
+16x16 precomputed table (film.go:61-73): the few transcendental ops fuse
+into the splat, where a table would need a gather per tap.
 """
 
 from __future__ import annotations

@@ -28,9 +28,9 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-# All einsums here are tiny affine transforms on the hot path — force f32:
-# TPU defaults matmul/einsum precision to bf16, which corrupts ray
-# transforms at the 0.4% level (discovered via the Pallas kernel oracle).
+# All einsums here are tiny affine transforms on the hot path — force full
+# f32: at default precision a GPU may run f32 products in TF32 (10-bit
+# mantissa), which corrupts ray transforms at the 1e-3 level.
 _HI = jax.lax.Precision.HIGHEST
 
 # ---------------------------------------------------------------------------
@@ -161,7 +161,7 @@ def matmul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     Note the reference's Matrix4x4.Mul has a bug in the last row
     (transform.go:66 uses m[3][j]); we implement the correct product.
     """
-    return a @ b
+    return jnp.matmul(a, b, precision=_HI)
 
 
 def transpose(m: jnp.ndarray) -> jnp.ndarray:

@@ -15,7 +15,7 @@ PBRT's closed-form γ error bounds, and reproject hit points onto the exact
 surface (sphere.go:100-104's refinement) — validated against the brute-force
 oracle and adversarial rays in tests/test_intersect.py.
 
-All kernels are two-phase, the standard wavefront-GPU/TPU design:
+All kernels are two-phase, the standard wavefront ray-casting design:
   phase 1 (hot): t-only tests -> (t, prim_idx) via min-reduction
   phase 2      : full SurfaceInteraction recomputed for the winner only
 """
@@ -73,7 +73,8 @@ def anim_o2w(anim: AnimPrims, i, time) -> jnp.ndarray:
     t = geom.lerp(dt[..., None], anim.t0[i], anim.t1[i])
     q = quat.slerp(dt, anim.q0[i], anim.q1[i])
     s = geom.lerp(dt[..., None, None], anim.s0[i], anim.s1[i])
-    m = quat.quat_to_matrix(q) @ s
+    m = jnp.matmul(quat.quat_to_matrix(q), s,
+                   precision=jax.lax.Precision.HIGHEST)
     return m.at[..., :3, 3].add(t)
 
 
@@ -290,9 +291,9 @@ def triangle_t(o, d, t_max, params):
 def prim_t(prims: Primitives, i, o, d, t_max, time=None):
     """t of primitive i against world-space rays (o, d); _BIG on miss.
 
-    ``i`` may be traced.  Type dispatch via masked evaluation of all three
-    kernels — on TPU this is cheaper than lax.switch's sequencing for a
-    3-way closed set and keeps everything on the VPU.
+    ``i`` may be traced.  Type dispatch via masked evaluation of the shape
+    kernels present in the table — no lax.switch sequencing for a 3-way
+    closed set, and it fuses into one elementwise program.
 
     time: f32[N] ray times in [0,1] for animated scenes (prims.anim set) —
     the transform is interpolated per lane (TransformedPrimitive.Intersect,
@@ -427,9 +428,9 @@ def _triangle_geometry(o, d, t, params):
     return p, p_err, n, uv, dpdu, dpdv
 
 
-# Row gathers by per-lane primitive id.  For small tables a one-hot matmul
-# (MXU) vastly outperforms TPU's serialized dynamic-gather; beyond the
-# cutoff fall back to a real gather.
+# Row gathers by per-lane primitive id.  Small tables go through a one-hot
+# matmul at HIGHEST precision (exact: one nonzero term per output); beyond
+# the cutoff, a real gather.  Which is faster on a GPU is not yet measured.
 ONE_HOT_GATHER_MAX = 256
 
 

@@ -57,9 +57,9 @@ class Lights(NamedTuple):
     prim_idx: jnp.ndarray  # int32[L]
     shape_kind: jnp.ndarray  # int32[L]
     o2w: jnp.ndarray  # f32[L,4,4]
-    w2o: jnp.ndarray  # f32[L,4,4] precomputed inverse (NEVER invert per-lane
-    #   at render time: batched linalg.inv over the wavefront is ~100x the
-    #   cost of the whole shading pass on TPU)
+    w2o: jnp.ndarray  # f32[L,4,4] precomputed inverse (never invert
+    #   per-lane at render time: a batched linalg.inv over the wavefront
+    #   costs more than the whole shading pass)
     params: jnp.ndarray  # f32[L,9]
 
     @property

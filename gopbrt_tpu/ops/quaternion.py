@@ -14,9 +14,12 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from gopbrt_tpu.ops import geom
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 def quat_mul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
@@ -151,11 +154,10 @@ def decompose(m: jnp.ndarray):
         r_next = 0.5 * (r + jnp.linalg.inv(jnp.swapaxes(r, -1, -2)))
         return r_next, None
 
-    import jax
-
     rot, _ = jax.lax.scan(polar_step, rot, None, length=20)
     q = quat_from_matrix(rot)
-    s = jnp.linalg.inv(rot) @ (m.at[..., :3, 3].set(0.0))
+    s = jnp.matmul(jnp.linalg.inv(rot), m.at[..., :3, 3].set(0.0),
+                   precision=_HI)
     return t, q, s
 
 
@@ -188,6 +190,7 @@ def interpolate(at: AnimatedTransform, time) -> jnp.ndarray:
     trans = geom.lerp(dt[..., None], at.t0, at.t1)
     rot = slerp(dt, at.q0, at.q1)
     scale = geom.lerp(dt[..., None, None], at.s0, at.s1)
-    m = quat_to_matrix(rot) @ scale
+    m = jnp.matmul(quat_to_matrix(rot), scale,
+                   precision=_HI)
     m = m.at[..., :3, 3].add(trans)
     return jnp.where(at.actually_animated, m, at.start_m)

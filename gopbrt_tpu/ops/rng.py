@@ -6,14 +6,15 @@ Replaces the reference's mutable PCG32 RNG + Sampler object tree
 achieves per-tile determinism by ``sampler.Clone(tileIndex)`` seeding
 (``pkg/pbrt/integrator.go:318,328``); here determinism is per *pixel-sample*
 and independent of device count, sharding, or execution order — renders are
-bit-reproducible across 1-chip and N-chip runs and across batch splits.
+bit-reproducible across 1-device and N-device runs and across batch
+splits.
 
 Design: every random dimension consumed along a path has a statically
 assigned dimension index (camera jitter = dims 0-4, then a fixed stride of
 dims per bounce — see models/integrators.py).  The generator is a chained
 32-bit finalizer hash over (seed, pixel, sample, dim).  This is the
 wavefront-renderer analogue of PBRT's dimension-indexed samplers and is
-cheap enough to inline in Pallas kernels (integer ops on the VPU).
+cheap enough to inline in a kernel (a few integer ops per sample).
 """
 
 from __future__ import annotations
@@ -27,9 +28,9 @@ _GOLDEN = jnp.uint32(0x9E3779B9)
 
 # ---------------------------------------------------------------------------
 # Sampling-dimension layout (the static dimension assignment described in the
-# module docstring).  Lives here — not in models/integrators.py — because the
-# Pallas megakernel (ops/pallas_megakernel.py) must consume the *same* streams
-# as the jnp integrator chain; integrators re-exports these names.
+# module docstring).  Lives here, beside the generator, so that any consumer
+# draws the *same* streams as the jnp integrator chain; integrators
+# re-exports these names.
 # dims 0-4: camera (pixel jitter x2, lens x2, time); then a fixed
 # stride of dimensions per bounce.
 # ---------------------------------------------------------------------------
@@ -83,9 +84,8 @@ def stream_u32(seed, pixel, sample, dim) -> jnp.ndarray:
 def u32_to_unit(x: jnp.ndarray) -> jnp.ndarray:
     """uint32 -> f32 in [0, 1): top 23 bits become the mantissa of a float
     in [1, 2), minus 1.  Exactly uniform over {k*2^-23}; max value is
-    exactly ONE_MINUS_EPSILON; and — unlike a u32->f32 convert — lowers on
-    the Pallas TPU path (Mosaic has no u32->f32 cast), so the megakernel
-    consumes bit-identical streams.
+    exactly ONE_MINUS_EPSILON; and it is pure bit arithmetic, so every
+    backend produces bit-identical streams (the goldens depend on it).
     """
     bits = jnp.uint32(0x3F800000) | (x >> jnp.uint32(9))
     return jax.lax.bitcast_convert_type(bits, jnp.float32) - 1.0

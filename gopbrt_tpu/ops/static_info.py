@@ -54,44 +54,5 @@ class MatInfo:
     any_oren_nayar: bool = True
 
 
-@jax.tree_util.register_static
-@dataclass(frozen=True)
-class FastPathInfo:
-    """Whether the scene fits the fused Pallas bounce megakernel
-    (ops/pallas_megakernel.py) — the closed fast-path feature set:
-
-      shapes     sphere / disk only
-      materials  matte with sigma == 0, mirror, SMOOTH glass
-                 (FresnelSpecular), or ROUGH glass (GGX R+T, round 5);
-                 no bump, no subsurface
-      kd texture constant, or checkerboard with PLANAR mapping
-      lights     point / distant / sphere diffuse-area, global (non-spatial)
-                 light distribution, 1..16 lights
-      transforms rigid (+ uniform scale), det > 0, no reverse_orientation
-      media      none
-
-    Computed host-side by SceneBuilder.build(); rides Scene as registered
-    static aux data so the jit cache keys on it.  ``ok=False`` (or a Scene
-    built without the builder, fastinfo=None) falls back to the jnp
-    wavefront chain in models/integrators.py.
-
-    mesh_ok: the MESH megakernel's superset feature set
-    (ops/pallas_mesh_megakernel.py) — additionally allows TRIANGLE
-    primitives (<= 32 non-triangle "extras") and the PLASTIC material
-    (Lambert + GGX), with <= 16 materials.  Engaged only when the builder
-    also attached Scene.meshkernel (cluster tables, prim count > cutoff).
-    """
-
-    ok: bool = False
-    mesh_ok: bool = False
-    # any smooth-glass material present: the megakernels compile the
-    # FresnelSpecular lobe only when needed (register pressure)
-    has_glass: bool = False
-    # any rough-glass material present: the BRUTE megakernel compiles the
-    # GGX R+T lobes (round 5); the MESH megakernel does not implement
-    # them, so mesh_ok excludes rough-glass scenes
-    has_rough_glass: bool = False
-
-
 ALL_PRIMS: Optional[PrimInfo] = None  # None = assume everything (tests)
 ALL_MATS: Optional[MatInfo] = None

@@ -1,1 +1,1 @@
-"""Device-mesh sharding: multi-chip render and gradient steps."""
+"""Device-mesh sharding: multi-device render and gradient steps."""

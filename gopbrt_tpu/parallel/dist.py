@@ -20,7 +20,7 @@ import jax
 def init_distributed(**kwargs) -> bool:
     """Initialize JAX multi-host coordination (``jax.distributed``) when the
     environment provides a coordinator (JAX_COORDINATOR_ADDRESS or explicit
-    kwargs) — the DCN bring-up for multi-host pods; ICI collectives inside
+    kwargs) — the bring-up for multi-host runs; collectives inside
     shard_map need no further setup.  Returns True when initialized.
 
     Single-host runs (no coordinator configured) are a no-op: the in-process

@@ -7,14 +7,18 @@ SPMD over a device mesh:
 
   * axis ``data``   shards the *pixel wavefront* (the tile analogue),
   * axis ``sample`` shards spp (independent sample batches per device),
-  * the scene/BVH tables are replicated into each chip's HBM,
-  * film accumulation is a single ``psum`` over ICI (the mutex analogue),
+  * the scene/BVH tables are replicated into each device's memory,
+  * film accumulation is a single ``psum`` (the mutex analogue),
   * inverse-rendering gradients are psum'd the same way, overlapped with
     the backward sweep by XLA.
 
+The mesh shape follows the algorithm alone: the cards of one host are
+joined all to all (NVLink), so no axis order is cheaper than another.
+
 Determinism: the counter-based sampler (ops/rng.py) keys on global pixel
 and sample ids, so any mesh shape produces bit-identical sample streams —
-the multi-chip render equals the 1-chip render up to f32 psum ordering.
+the multi-device render equals the 1-device render up to f32 psum
+ordering.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import jax
 import jax.numpy as jnp
 import optax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from gopbrt_tpu.models import camera as cam_mod
 from gopbrt_tpu.models import film as film_mod
@@ -71,7 +75,7 @@ def render_pass_sharded(
         mesh=mesh,
         in_specs=(P(), P(), P()),
         out_specs=P(),
-        check_rep=False,
+        check_vma=False,
     )
     def step(scene_, camera_, film_):
         local_film = film_mod.Film(
@@ -114,7 +118,7 @@ def render_pass_sharded_band(
 
       * spp reduction: psum over the 'sample' axis of the *band* only,
       * cross-band filter taps (the ceil(radius)-row halo of the dense row
-        splat): a single neighbour ``ppermute`` over ICI each way.
+        splat): a single neighbour ``ppermute`` each way.
 
     Per-pass film traffic per device drops from O(H*W) to
     O(band + 2*rr*W); film HBM footprint per device drops n_data-fold.
@@ -132,7 +136,7 @@ def render_pass_sharded_band(
         mesh=mesh,
         in_specs=(P(), P(), band_spec),
         out_specs=band_spec,
-        check_rep=False,
+        check_vma=False,
     )
     def step(scene_, camera_, film_):
         d_idx = jax.lax.axis_index("data")
@@ -161,7 +165,7 @@ def render_pass_sharded_band(
         core_w = acc_w[rr : rr + band_rows]
         if n_data > 1 and rr > 0:
             # halo exchange: my top rows belong to the previous band, my
-            # bottom rows to the next — one ppermute each way over ICI
+            # bottom rows to the next — one ppermute each way
             # (non-circular: edge devices receive zeros)
             fwd = [(i, i + 1) for i in range(n_data - 1)]
             bwd = [(i, i - 1) for i in range(1, n_data)]
@@ -198,7 +202,7 @@ def render_sharded(
     settings: render_mod.RenderSettings,
     band_film: bool = True,
 ) -> jnp.ndarray:
-    """Full distributed render (the multi-chip ``Render``).
+    """Full distributed render (the multi-device ``Render``).
 
     band_film=True (default) keeps the film row-sharded per device for the
     whole render (one cross-band halo ppermute per pass) and gathers bands
@@ -207,7 +211,7 @@ def render_sharded(
     """
     # pin inputs to the mesh's devices: the mesh may live on a different
     # backend than the default (e.g. a virtual-CPU validation mesh while the
-    # default backend is a single TPU)
+    # default backend is a single GPU)
     rep = NamedSharding(mesh, P())
     scene, camera = jax.device_put((scene, camera), rep)
     n_sample = mesh.shape["sample"]
@@ -283,19 +287,19 @@ def make_train_step(
         mesh=mesh,
         in_specs=(P(), P(), P()),
         out_specs=(P(), P(), P()),
-        check_rep=False,
+        check_vma=False,
     )
     def sharded_grad(params, opt_state, target):
         s_idx = jax.lax.axis_index("sample")
         row0 = (jax.lax.axis_index("data") * band_rows).astype(jnp.int32)
         loss, grads = jax.value_and_grad(local_loss)(params, target, row0, s_idx)
         # Combine per-device partial gradients.  Under shard_map with
-        # check_rep=False, the film-psum's transpose re-broadcasts the full
+        # check_vma=False, the film-psum's transpose re-broadcasts the full
         # cotangent to every device, so a plain psum over-counts by the mesh
         # size — pmean gives exactly the single-device gradient (verified
         # against jax.grad in tests/test_sharding.py).  This all-reduce is
-        # the renderer's "gradient all-reduce over ICI", overlapped with the
-        # backward sweep by XLA.
+        # the renderer's gradient all-reduce, overlapped with the backward
+        # sweep by XLA.
         grads = jax.lax.pmean(grads, ("data", "sample"))
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)

@@ -11,7 +11,9 @@ Counterpart of the reference's service stack:
 
 Uses grpc generic handlers with the hand-rolled codec in service/proto.py
 (wire-compatible with proto/render/service.proto), so grpcurl clients of
-the Go daemon work unchanged.  Improvements over the reference:
+the Go daemon work unchanged.  grpc (and protobuf, for reflection) is
+imported only by ``make_server``: ``RenderService`` itself needs
+neither.  Improvements over the reference:
   * scene_id selects from a registry (demo / cornell / mesh / glass — the
     BASELINE gallery); the reference ignores it (service.proto:10),
   * the request ``time`` field (ignored by the reference, service.proto:11)
@@ -28,8 +30,6 @@ import signal
 import threading
 import time
 from concurrent import futures
-
-import grpc
 
 from gopbrt_tpu.service.proto import RenderRequest, RenderResponse
 
@@ -126,7 +126,9 @@ class RenderService:
 
 def make_server(
     port: int = DEFAULT_PORT, service: RenderService | None = None
-) -> grpc.Server:
+) -> "grpc.Server":
+    import grpc
+
     service = service or RenderService()
     server = grpc.server(futures.ThreadPoolExecutor(max_workers=4))
     rpc = grpc.unary_unary_rpc_method_handler(
@@ -146,6 +148,9 @@ def make_server(
 
 def main(port: int = DEFAULT_PORT) -> None:
     """Daemon entry (cmd/pbrtd/main.go): serve until SIGINT/SIGTERM."""
+    from gopbrt_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     server = make_server(port)
     stop = threading.Event()
 
@@ -155,7 +160,7 @@ def main(port: int = DEFAULT_PORT) -> None:
     signal.signal(signal.SIGINT, on_signal)
     signal.signal(signal.SIGTERM, on_signal)
     server.start()
-    print(f"pbrtd-tpu listening on :{port}")
+    print(f"pbrtd listening on :{port}")
     stop.wait()
     server.stop(grace=5).wait()
     print("shutdown complete")

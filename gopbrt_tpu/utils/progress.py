@@ -2,8 +2,8 @@
 
 The reference runs a channel-fed goroutine printing ``\rProgress: %`` with
 start/end timestamps (progress.go:10-61).  Here progress is a host-side
-callback between device passes (there is no mid-kernel progress on TPU —
-a pass is one XLA program).
+callback between device passes (there is no progress inside a pass — a
+pass is one XLA program).
 """
 
 from __future__ import annotations

@@ -14,8 +14,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+
+from gopbrt_tpu.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 
@@ -36,17 +39,9 @@ def main() -> None:
         print(f"{name}: mean={img.mean():.4f} max={img.max():.3f}", flush=True)
 
     # compat_go demo (reference WriteImage semantics, film.go:142-179)
-    from gopbrt_tpu.models.demo import build_demo_camera, build_demo_scene
+    from gopbrt_tpu.models.gallery import render_compat_go_demo
 
-    scene = build_demo_scene(accelerator="none")
-    w, h = 96, 54
-    cam = build_demo_camera(w, h)
-    settings = render_mod.RenderSettings(
-        width=w, height=h, spp=4, max_depth=5, samples_per_pass=4, seed=2,
-    )
-    film = film_mod.new_film(w, h)
-    film = render_mod.render_pass(scene, cam, film, settings, np.uint32(0))
-    img = np.asarray(film_mod.develop(film, compat_go=True))
+    img = render_compat_go_demo()
     np.savez_compressed(
         os.path.join(out_dir, "compat_go_demo.npz"), img=img.astype(np.float16)
     )

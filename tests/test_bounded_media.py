@@ -114,16 +114,6 @@ class TestNullBoundary:
         expected = np.trapezoid(integrand, s_in)
         np.testing.assert_allclose(got, expected, rtol=0.06)
 
-    def test_fastinfo_rejects_bounded_media(self):
-        b = SceneBuilder()
-        fog = b.add_medium((0.1,) * 3)
-        nm = b.null_material()
-        ball = b.sphere(np.eye(4), 1.0, nm)
-        b.set_medium_interface(ball, inside=fog)
-        b.point_light((0.0, 3.0, 0.0), (1.0,) * 3)
-        scene = b.build(accelerator="none")
-        assert not scene.fastinfo.ok and not scene.fastinfo.mesh_ok
-
 
 class TestRefractiveInterface:
     def test_glass_shell_interior_absorption(self):

@@ -60,7 +60,7 @@ def test_direct_equals_direct_only_path_per_lane():
     seed = jnp.uint32(3)
     cfg = integrators.PathConfig(max_depth=2, rr_threshold=1.0)
     ref = np.asarray(
-        integrators._li_jnp(scene, o, d, pixel, sample, seed, cfg)
+        integrators.li(scene, o, d, pixel, sample, seed, cfg)
     )
     got = np.asarray(
         integrators.li_direct(scene, o, d, pixel, sample, seed, max_depth=2)

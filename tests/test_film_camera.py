@@ -77,6 +77,31 @@ class TestFilm:
         assert np.asarray(m.weight).sum() == pytest.approx(2.0)
 
 
+class TestPng:
+    """film.write_png's standard-library encoder."""
+
+    @pytest.mark.parametrize("hw", [(1, 1), (5, 7), (54, 96)])
+    def test_round_trip(self, tmp_path, hw):
+        h, w = hw
+        rng = np.random.default_rng(h * w)
+        img = rng.uniform(0.0, 1.0, (h, w, 3)).astype(np.float32)
+        path = film_mod.write_png(str(tmp_path / "out.png"), img)
+        data = open(path, "rb").read()
+        expect = film_mod.to_uint8(img)
+        np.testing.assert_array_equal(film_mod.decode_png(data), expect)
+        # any PNG reader agrees (Pillow, when the test host has it)
+        Image = pytest.importorskip("PIL.Image")
+        with Image.open(path) as im:
+            assert im.mode == "RGB" and im.size == (w, h)
+            np.testing.assert_array_equal(np.asarray(im), expect)
+
+    def test_corrupt_chunk_is_refused(self):
+        data = bytearray(film_mod.encode_png(np.zeros((4, 4, 3), np.uint8)))
+        data[40] ^= 0xFF  # inside the IDAT payload: its CRC no longer holds
+        with pytest.raises(ValueError, match="CRC"):
+            film_mod.decode_png(bytes(data))
+
+
 class TestSrgb:
     def test_roundtrip_monotone(self):
         x = jnp.linspace(0, 1, 64)

@@ -21,28 +21,17 @@ import os
 import numpy as np
 import pytest
 
-from gopbrt_tpu.models import film as film_mod
 from gopbrt_tpu.models import render as render_mod
-from gopbrt_tpu.models.gallery import CONFIGS, golden_config
+from gopbrt_tpu.models.gallery import (
+    CONFIGS,
+    golden_check,
+    golden_config,
+    render_compat_go_demo,
+)
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
-
-# Per-config gates (sRGB space, [0,1]).  Rationale:
-#   * renders are deterministic on a fixed backend, so the gates exist to
-#     survive benign op-reordering (XLA bumps, refactors) while failing on
-#     radiometric change;
-#   * configs 2/4 render their goldens at 128px/64spp (gallery.
-#     GOLDEN_SETTINGS), putting the MC noise floor ~4x below the 8/16-spp
-#     configs — their mean gate is 2x tighter so a subtle MIS-weight or
-#     Fresnel bug cannot hide inside noise;
-#   * the pixel gate allows a 0.5% tail for pixels whose discrete
-#     decisions (hit selection, RR) flip on float noise across backends.
-TOLS = {
-    "config1_demo_direct": (1e-3, 5e-3, 0.995),
-    "config2_cornell_mirror": (5e-4, 5e-3, 0.995),
-    "config3_mesh_bvh": (1e-3, 5e-3, 0.995),
-    "config4_arealights_glass": (5e-4, 5e-3, 0.995),
-}
+# per-config gates: gallery.GOLDEN_TOLS (shared with chip_smoke.py, which
+# holds the same renders on the GPU to the same gates)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -55,30 +44,15 @@ def test_golden(name):
     scene, cam, settings = golden_config(name)
     img = np.asarray(render_mod.render(scene, cam, settings))
     assert img.shape == ref.shape
-    diff = np.abs(img - ref)
-    mean_tol, pix_tol, frac = TOLS[name]
-    assert diff.mean() < mean_tol, f"mean drift {diff.mean():.2e}"
-    assert (diff < pix_tol).mean() > frac, (
-        f"pixels off: {(diff >= pix_tol).mean():.4f}"
-    )
+    mean, within, ok = golden_check(name, img, ref)
+    assert ok, f"mean drift {mean:.2e}, pixels within gate {within:.4f}"
 
 
 def test_golden_compat_go_demo():
     """Demo film developed with the reference's WriteImage semantics."""
-    from gopbrt_tpu.models.demo import build_demo_camera, build_demo_scene
-
     path = os.path.join(GOLDEN_DIR, "compat_go_demo.npz")
     assert os.path.exists(path)
     ref = np.load(path)["img"].astype(np.float32)
-    scene = build_demo_scene(accelerator="none")
-    w, h = 96, 54
-    cam = build_demo_camera(w, h)
-    settings = render_mod.RenderSettings(
-        width=w, height=h, spp=4, max_depth=5, samples_per_pass=4, seed=2,
-    )
-    film = film_mod.new_film(w, h)
-    film = render_mod.render_pass(scene, cam, film, settings, np.uint32(0))
-    img = np.asarray(film_mod.develop(film, compat_go=True))
-    diff = np.abs(img - ref)
-    assert diff.mean() < 1e-3
-    assert (diff < 5e-3).mean() > 0.995
+    img = render_compat_go_demo()
+    mean, within, ok = golden_check("compat_go_demo", img, ref)
+    assert ok, f"mean drift {mean:.2e}, pixels within gate {within:.4f}"

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import pytest
 
 from gopbrt_tpu.models import camera as cam_mod
+from gopbrt_tpu.models import integrators as I
 from gopbrt_tpu.models import render as render_mod
 from gopbrt_tpu.models.scene import SceneBuilder
 from gopbrt_tpu.ops import geom
@@ -44,7 +45,8 @@ def test_static_prims_have_no_anim_table():
     sc = _sphere_scene(animated=True)
     assert sc.prims.anim is not None
     assert bool(sc.prims.anim.animated[0])
-    assert not (sc.fastinfo and sc.fastinfo.ok)  # megakernel excluded
+    # the time-interpolating intersector: the kernel path is static-only
+    assert sc.bvh is None and sc.prims.count <= I.BRUTE_FORCE_CUTOFF
 
 
 def _srgb_decode(v):

@@ -95,7 +95,7 @@ class TestShardedGradient:
         from functools import partial
 
         from jax.sharding import PartitionSpec as P
-        from jax.experimental.shard_map import shard_map
+        from jax import shard_map
 
         from gopbrt_tpu.models import film as film_mod
 
@@ -117,7 +117,7 @@ class TestShardedGradient:
 
         @partial(
             shard_map, mesh=mesh, in_specs=(P(), P("data")), out_specs=P(),
-            check_rep=False,
+            check_vma=False,
         )
         def sharded(kd, pix):
             s_idx = jax.lax.axis_index("sample")

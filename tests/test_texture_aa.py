@@ -10,7 +10,6 @@ truth than the low-spp point-sampled render is.
 """
 
 import numpy as np
-import jax.numpy as jnp
 
 from gopbrt_tpu.models import camera as cam_mod
 from gopbrt_tpu.models import render as render_mod
@@ -68,35 +67,3 @@ def test_near_field_unchanged_by_aa():
     b = _render(scene, spp=64, aa=False)
     near = slice(5 * H // 6, H)  # closest rows
     assert np.abs(a[near] - b[near]).mean() < 0.015
-
-
-def test_megakernel_checker_aa_parity():
-    """The in-kernel closed-form checker filter must match the jnp chain's
-    (ops/texture._checker_filtered) on the same cone."""
-    from gopbrt_tpu.models import integrators
-    from gopbrt_tpu.ops import pallas_megakernel as mk
-    from gopbrt_tpu.models.demo import build_demo_scene, build_demo_camera
-
-    scene = build_demo_scene(accelerator="none")
-    assert scene.fastinfo.ok
-    w, h = 64, 36
-    camera = build_demo_camera(w, h)
-    settings = render_mod.RenderSettings(width=w, height=h, spp=1, max_depth=3)
-    pixel = jnp.arange(w * h, dtype=jnp.uint32)
-    sample = jnp.zeros((w * h,), jnp.uint32)
-    p_film, u_lens = render_mod.camera_samples(settings, pixel, sample, jnp.uint32(3))
-    o, d = cam_mod.generate_rays(camera, p_film, u_lens)
-    cone = cam_mod.pixel_spread(camera)
-    cfg = integrators.PathConfig(max_depth=3)
-    ref = np.asarray(
-        integrators._li_jnp(scene, o, d, pixel, sample, jnp.uint32(3), cfg, cone=cone)
-    )
-    got = np.asarray(
-        mk.path_li_fused(
-            scene, o, d, pixel, sample, jnp.uint32(3), cfg,
-            interpret=True, cone=cone,
-        )
-    )
-    diff = np.abs(got - ref).max(axis=-1)
-    rel = diff / (1e-3 + np.abs(ref).max(axis=-1))
-    assert np.mean(rel < 1e-3) > 0.99
